@@ -8,9 +8,9 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from xeve_tpu.api import Encoder, GopEncoder
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.constants import SLICE_I, SLICE_P, NUT_IDR
+from xeve_jax.api import Encoder, GopEncoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.constants import SLICE_I, SLICE_P, NUT_IDR
 
 
 def _frames(n, w=96, h=80):
@@ -78,7 +78,7 @@ def test_stat_ra_tids():
 def test_param_strings_and_config_file(tmp_path):
     """3-level config completion (xeve_param_parse.c:275 typed kv +
     app --config file)."""
-    from xeve_tpu.params import (EncoderParams, apply_param_strings,
+    from xeve_jax.params import (EncoderParams, apply_param_strings,
                                  params_from_config_file)
     p = EncoderParams(w=96, h=80)
     apply_param_strings(p, ["qp=27", "use_deblock=0", "fps = 24",

@@ -11,9 +11,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from xeve_tpu.api import Encoder, GopEncoder
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder, GopEncoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 W, H = 96, 80
@@ -47,7 +47,7 @@ def test_golden_reference_aq_stream():
 
 
 def test_aq_model_nonzero_offsets():
-    from xeve_tpu.enc.aq import aq_block_offsets
+    from xeve_jax.enc.aq import aq_block_offsets
     (y, u, v) = _var_frames(1)[0]
     off = aq_block_offsets(y.astype(np.int32), u.astype(np.int32),
                            v.astype(np.int32), 10)

@@ -8,9 +8,9 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from xeve_tpu.api import Encoder, GopEncoder
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder, GopEncoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 
 def _frames(n, w=96, h=80):
@@ -43,8 +43,8 @@ def test_bd8_roundtrip(prof, bf, ki):
 
 
 def test_bd8_sps_signals_depth():
-    from xeve_tpu.hls import SPS, split_nals
-    from xeve_tpu.io.bits import BitReader
+    from xeve_jax.hls import SPS, split_nals
+    from xeve_jax.io.bits import BitReader
     frames = _frames(1)
     p = EncoderParams(w=96, h=80, qp=30, keyint=1, codec_bit_depth=8)
     enc = Encoder(p, analysis="numpy", coder="native")

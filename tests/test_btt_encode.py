@@ -8,9 +8,9 @@ xeve btt streams (tests/test_conformance.py BTT cases) — is the oracle.
 """
 import numpy as np
 
-from xeve_tpu.api import Encoder, GopEncoder
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder, GopEncoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 
 def _frames(n, w=96, h=80):

@@ -8,10 +8,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from xeve_tpu.api import Encoder, GopEncoder
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.state import save_state, load_state
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder, GopEncoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.state import save_state, load_state
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 
 def _frames(n, w=96, h=80):

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 from tests.conftest import DATA, load_rec10
 
 CASES = [
@@ -83,8 +83,8 @@ def test_decode_reference_ra_gop16_bitstream():
 
 def test_picture_signature_sei_verified():
     """Decoder verifies the MD5 picture-signature SEI when present."""
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
     from tests.conftest import load_yuv8
     y8, u8, v8 = load_yuv8(os.path.join(DATA, "s96.yuv"), 96, 80, 0)
     enc = Encoder(EncoderParams(w=96, h=80, qp=30, keyint=1,
@@ -370,7 +370,7 @@ def test_decode_mvr_idx_syntax():
     (xevem.c:1375) but the tool-isolation driver proceeds.  Decoding with
     the flag forced pins our truncated-unary mvr_idx parse and the
     mvd << mvr_idx reconstruction ahead of the full ADMVP stack."""
-    from xeve_tpu.hls import SPS
+    from xeve_jax.hls import SPS
 
     class _Dec(BaselineIntraDecoder):
         def _setup_dims(self):

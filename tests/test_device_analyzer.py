@@ -9,9 +9,9 @@ agreement with the numpy oracle.
 import numpy as np
 import pytest
 
-from xeve_tpu.api import Encoder, GopEncoder, psnr
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder, GopEncoder, psnr
+from xeve_jax.params import EncoderParams
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 W, H = 128, 64
 

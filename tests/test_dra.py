@@ -16,7 +16,7 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 W, H = 96, 80
@@ -46,7 +46,7 @@ def test_golden_dra_decode(name):
 def test_dra_lut_roundtrip():
     """Forward->inverse luma LUT composition is near-identity inside the
     mapped range (fixed-point quantization allows +-1)."""
-    from xeve_tpu.ops.dra_np import derive_sig_params, build_dra_maps
+    from xeve_jax.ops.dra_np import derive_sig_params, build_dra_maps
     sig = derive_sig_params(32, num_ranges=8,
                             in_points=[64, 128, 192, 256, 384, 512, 640,
                                        768],
@@ -60,8 +60,8 @@ def test_dra_lut_roundtrip():
 @pytest.mark.parametrize("ki,bf", [(1, 0), (0, 0), (0, 15)])
 def test_dra_own_roundtrip(ki, bf):
     from tools.gen_test_content import gen_frame
-    from xeve_tpu.api import Encoder, GopEncoder
-    from xeve_tpu.params import EncoderParams
+    from xeve_jax.api import Encoder, GopEncoder
+    from xeve_jax.params import EncoderParams
     n = 20 if bf else 4
     frames = []
     for t in range(n):

@@ -4,9 +4,9 @@ import os
 
 import numpy as np
 
-from xeve_tpu.api import Encoder, psnr
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder, psnr
+from xeve_jax.params import EncoderParams
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 from tests.conftest import DATA, load_yuv8
 
 
@@ -73,9 +73,9 @@ def test_main_profile_roundtrip():
     """Our encoder can emit Main-profile streams (tool flags all off); the
     conformance decoder round-trips them bit-exactly incl. signature SEI."""
     import numpy as np
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     from tests.conftest import DATA, load_yuv8
     import os
     y, u, v = load_yuv8(os.path.join(DATA, "s96.yuv"), 96, 80, 0)
@@ -95,9 +95,9 @@ def test_presets_and_tunes():
     """Preset ladder (xeve_param_ppt counterpart): every preset produces a
     valid stream; fast uses a smaller ME window and no 4x4 CUs."""
     import numpy as np
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     rng = np.random.RandomState(3)
     y = rng.randint(0, 1024, (80, 96))
     u = rng.randint(0, 1024, (40, 48))

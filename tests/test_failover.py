@@ -21,16 +21,16 @@ def _frames(n, w=96, h=80):
 
 
 class _DeadVec:
-    """A device buffer whose readback always fails (preempted TPU)."""
+    """A device buffer whose readback always fails (a lost device)."""
     def __array__(self, *a, **k):
         raise RuntimeError("device lost")
 
 
 def test_collect_survives_device_loss():
-    from xeve_tpu.enc.device_analyzer import DeviceAnalyzer
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.enc.device_analyzer import DeviceAnalyzer
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
 
     frames = _frames(5)
     p = EncoderParams(w=96, h=80, qp=30, keyint=0, bframes=0)
@@ -60,9 +60,9 @@ def test_collect_survives_device_loss():
 def test_redispatch_recovers():
     """First readback fails once; the re-dispatch succeeds and the result
     equals an undisturbed run."""
-    from xeve_tpu.enc.device_analyzer import DeviceAnalyzer
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
+    from xeve_jax.enc.device_analyzer import DeviceAnalyzer
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
 
     frames = _frames(3)
     p = EncoderParams(w=96, h=80, qp=30, keyint=0, bframes=0)
@@ -87,3 +87,33 @@ def test_redispatch_recovers():
     bs = b"".join(o[0] for o in enc.encode_stream(iter(frames)))
     assert dev.failures == 1
     assert bs == ref_bs
+
+
+def test_recovery_logs_a_warning(caplog):
+    """Every recovery says so: a warning with the exception for the
+    failed readback and one for the failed re-dispatch."""
+    import logging
+    from xeve_jax.enc.device_analyzer import DeviceAnalyzer
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+
+    enc = Encoder(EncoderParams(w=96, h=80, qp=30, keyint=0, bframes=0),
+                  analysis="device", coder="native")
+    dev = enc._device()
+    real_dispatch = DeviceAnalyzer.dispatch
+
+    def dead_dispatch(self, *a, **k):
+        hd = real_dispatch(self, *a, **k)
+        hd.vec = _DeadVec()
+        return hd
+
+    dev.dispatch = dead_dispatch.__get__(dev)
+    with caplog.at_level(logging.WARNING,
+                         logger="xeve_jax.enc.device_analyzer"):
+        outs = list(enc.encode_stream(iter(_frames(2))))
+    assert len(outs) == 2 and dev.failures == 2
+    msgs = [r.getMessage() for r in caplog.records
+            if r.levelno == logging.WARNING]
+    assert sum("re-dispatching" in m for m in msgs) == 2
+    assert sum("numpy oracle" in m for m in msgs) == 2
+    assert all("device lost" in m for m in msgs)

@@ -9,9 +9,9 @@ import os
 import numpy as np
 import pytest
 
-from xeve_tpu.api import GopEncoder
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import GopEncoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 W, H = 128, 64
 
@@ -30,7 +30,7 @@ def _frames(n, w=W, h=H):
 
 
 def _encode(frames, workers):
-    os.environ["XEVE_TPU_FRAME_WORKERS"] = str(workers)
+    os.environ["XEVE_FRAME_WORKERS"] = str(workers)
     try:
         enc = GopEncoder(EncoderParams(w=W, h=H, qp=30, keyint=0,
                                        bframes=15), analysis="device")
@@ -39,7 +39,7 @@ def _encode(frames, workers):
             chunks[poc] = bs
         return b"".join(chunks[p] for p in sorted(chunks)), chunks
     finally:
-        del os.environ["XEVE_TPU_FRAME_WORKERS"]
+        del os.environ["XEVE_FRAME_WORKERS"]
 
 
 def test_parallel_equals_serial():
@@ -53,7 +53,7 @@ def test_parallel_equals_serial():
 
 def test_parallel_decodes():
     frames = _frames(18)
-    os.environ["XEVE_TPU_FRAME_WORKERS"] = "3"
+    os.environ["XEVE_FRAME_WORKERS"] = "3"
     try:
         enc = GopEncoder(EncoderParams(w=W, h=H, qp=30, keyint=0,
                                        bframes=15), analysis="device")
@@ -63,7 +63,7 @@ def test_parallel_decodes():
             bs += out
             recs[poc] = rec
     finally:
-        del os.environ["XEVE_TPU_FRAME_WORKERS"]
+        del os.environ["XEVE_FRAME_WORKERS"]
     dec = BaselineIntraDecoder().decode(bs)
     assert len(dec) == 18
     for f in dec:
@@ -75,9 +75,9 @@ def test_parallel_ai_equals_serial():
     frames = _frames(6)
 
     def run(workers):
-        os.environ["XEVE_TPU_FRAME_WORKERS"] = str(workers)
+        os.environ["XEVE_FRAME_WORKERS"] = str(workers)
         try:
-            from xeve_tpu.api import Encoder
+            from xeve_jax.api import Encoder
             enc = Encoder(EncoderParams(w=W, h=H, qp=30, keyint=1),
                           analysis="device")
             out = []
@@ -85,7 +85,7 @@ def test_parallel_ai_equals_serial():
                 out.append((poc, bs, rec[0].tobytes()))
             return out
         finally:
-            del os.environ["XEVE_TPU_FRAME_WORKERS"]
+            del os.environ["XEVE_FRAME_WORKERS"]
 
     a = run(3)
     b = run(1)

@@ -4,9 +4,9 @@ import os
 import numpy as np
 
 from tests.conftest import DATA, load_yuv8
-from xeve_tpu.api import Encoder, psnr
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder, psnr
+from xeve_jax.params import EncoderParams
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 
 def test_ldp_encode_decode_roundtrip():
@@ -40,7 +40,7 @@ def test_ldp_quality_sane():
 
 
 def test_mc_kernels_integer_copy():
-    from xeve_tpu.ops import mc_np
+    from xeve_jax.ops import mc_np
     rng = np.random.RandomState(0)
     ref = rng.randint(0, 1024, (64, 64)).astype(np.int32)
     pad = 80
@@ -57,7 +57,7 @@ def test_ra_gop16_encode_decode_roundtrip():
     """RA hierarchical-B encoding: 20 frames through push/flush, coding
     order must match the reference GOP16 structure, and the stream must
     decode bit-exactly."""
-    from xeve_tpu.api import GopEncoder
+    from xeve_jax.api import GopEncoder
     w, h = 96, 80
     enc = GopEncoder(EncoderParams(w=w, h=h, qp=30, keyint=0, bframes=15),
                      coder="numpy")

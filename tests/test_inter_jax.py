@@ -3,9 +3,9 @@ streams must decode bit-exactly and land at the numpy analysis RD point."""
 import numpy as np
 import pytest
 
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.api import Encoder, psnr
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.api import Encoder, psnr
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 
 def synth(n, w, h, seed=3):
@@ -49,8 +49,8 @@ def test_jax_subpel_matches_oracle_selection():
     """Phase-plane MC inside the JAX analysis is integer-exact: the subpel
     SAD surface must match the numpy oracle's MC-based SAD for any MV."""
     import jax.numpy as jnp
-    from xeve_tpu.ops import mc_np
-    from xeve_tpu.enc.analysis_inter_jax import (_phase_planes,
+    from xeve_jax.ops import mc_np
+    from xeve_jax.enc.analysis_inter_jax import (_phase_planes,
                                                  _gather_blocks, PAD)
     rng = np.random.default_rng(0)
     ref = rng.integers(0, 1024, (64, 64)).astype(np.int32)

@@ -1,8 +1,8 @@
 """Golden tests for the exact-integer kernels."""
 import numpy as np
 
-from xeve_tpu.constants import TM, dct2_matrix, zigzag_scan, SCAN
-from xeve_tpu.ops import reference_kernels as rk
+from xeve_jax.constants import TM, dct2_matrix, zigzag_scan, SCAN
+from xeve_jax.ops import reference_kernels as rk
 
 
 def test_dct2_matrix_properties():

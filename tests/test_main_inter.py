@@ -19,9 +19,9 @@ def _frames(w, h, n):
 
 
 def test_main_ldp_roundtrip():
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     W, H = 128, 96
     enc = Encoder(EncoderParams(w=W, h=H, qp=32, keyint=0, profile=1),
                   coder="native")
@@ -42,9 +42,9 @@ def test_main_ldp_roundtrip():
 
 
 def test_main_ra_gop16_roundtrip():
-    from xeve_tpu.api import GopEncoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import GopEncoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     W, H = 128, 96
     enc = GopEncoder(EncoderParams(w=W, h=H, qp=32, keyint=0, bframes=15,
                                    profile=1), coder="native")

@@ -14,8 +14,8 @@ from tests.conftest import DATA, load_yuv8
 
 
 def test_adcc_roundtrip_fuzz():
-    from xeve_tpu.entropy.sbac import SbacEncoder, SbacDecoder, SbacCtx
-    from xeve_tpu.entropy import adcc
+    from xeve_jax.entropy.sbac import SbacEncoder, SbacDecoder, SbacCtx
+    from xeve_jax.entropy import adcc
     rng = np.random.RandomState(7)
     for trial in range(120):
         st = rng.randint(0, 3)
@@ -41,8 +41,8 @@ def test_adcc_roundtrip_fuzz():
 
 
 def test_batched_eipd_preds_match_scalar():
-    from xeve_tpu.ops import intra_main_np as im
-    from xeve_tpu.ops import intra_main_batch as ib
+    from xeve_jax.ops import intra_main_np as im
+    from xeve_jax.ops import intra_main_batch as ib
     rng = np.random.RandomState(3)
     bd = 10
     for (w, h) in [(4, 4), (8, 8), (16, 16), (64, 64), (8, 4), (2, 2)]:
@@ -58,9 +58,9 @@ def test_batched_eipd_preds_match_scalar():
 
 
 def test_main_ai_roundtrip_and_rd():
-    from xeve_tpu.api import Encoder, psnr
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder, psnr
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
 
     y, u, v = load_yuv8(os.path.join(DATA, "s96.yuv"), 96, 80, 0)
     enc = Encoder(EncoderParams(w=96, h=80, qp=30, keyint=1, profile=1,
@@ -112,8 +112,8 @@ def test_main_ai_roundtrip_and_rd():
 def test_main_native_matches_oracle():
     """Native C Main pass (EIPD+IQT+CM_INIT+ADCC) is byte-exact vs the
     numpy MainIntraFramePass."""
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
     rng = np.random.RandomState(5)
     for (w, h, qp) in [(96, 80, 30), (64, 64, 22), (128, 96, 40)]:
         y = rng.randint(0, 1024, (h, w)).astype(np.int32)
@@ -137,9 +137,9 @@ def test_main_jax_analysis_agrees_with_numpy():
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     from tools.gen_test_content import gen_frame
-    from xeve_tpu.constants import chroma_qp_dynamic
-    from xeve_tpu.enc.analysis_main_np import analyze_frame_main
-    from xeve_tpu.enc.analysis_main_jax import analyze_frame_main_jax
+    from xeve_jax.constants import chroma_qp_dynamic
+    from xeve_jax.enc.analysis_main_np import analyze_frame_main
+    from xeve_jax.enc.analysis_main_jax import analyze_frame_main_jax
     y, u, v = gen_frame(128, 64, 1)
     y = y.astype(np.int32) << 2
     u = u.astype(np.int32) << 2
@@ -163,9 +163,9 @@ def test_main_ai_multiframe_synthetic():
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     from tools.gen_test_content import gen_frame
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     enc = Encoder(EncoderParams(w=128, h=96, qp=34, keyint=1, profile=1))
     stream = b""
     recs = []
@@ -188,9 +188,9 @@ def test_ats_encode_roundtrip_and_parity():
     """ATS-intra encode (DST7xDST7 candidate, xevem_tq.c:684 forward): the
     native and numpy passes make identical decisions, streams decode
     bit-exactly, and the ats_intra_cu flag is actually exercised."""
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     rng = np.random.RandomState(9)
     w, h = 96, 80
     yy, xx = np.mgrid[0:h, 0:w]
@@ -216,9 +216,9 @@ def test_ats_encode_roundtrip_and_parity():
 def test_htdf_native_encode_roundtrip():
     """Native HTDF (xt_htdf_cu, ops/htdf_np.py port): byte-exact vs the
     numpy pass and bit-exact through the decoder."""
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     from tools.gen_test_content import gen_frame
     y, u, v = gen_frame(96, 80, 0)
     y, u, v = y.astype(np.int16) << 2, u.astype(np.int16) << 2, \

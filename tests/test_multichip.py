@@ -24,9 +24,9 @@ def test_meshed_subgop_bitstream_determinism():
     import jax
     if len(jax.devices()) < 2:
         pytest.skip("needs the virtual multi-device CPU mesh")
-    from xeve_tpu.api import GopEncoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.parallel.mesh import make_mesh
+    from xeve_jax.api import GopEncoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.parallel.mesh import make_mesh
 
     W, H = 128, 64
     frames = _frames(W, H, 18)
@@ -50,6 +50,6 @@ def test_meshed_subgop_bitstream_determinism():
     assert one == n, (len(one), len(n))
 
     # and the stream is valid
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     fr = BaselineIntraDecoder().decode(n)
     assert len(fr) == 18

@@ -15,9 +15,9 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from xeve_tpu.api import Encoder, GopEncoder
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder, GopEncoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 W, H = 96, 80

@@ -5,15 +5,15 @@ import numpy as np
 import pytest
 
 from tests.conftest import DATA, load_yuv8
-from xeve_tpu.enc.analysis_np import analyze_frame
-from xeve_tpu.enc.frame_pass import FramePass as IntraFramePass
-from xeve_tpu.entropy.sbac import SbacEncoder, SbacCtx
-from xeve_tpu.constants import chroma_qp_dynamic
+from xeve_jax.enc.analysis_np import analyze_frame
+from xeve_jax.enc.frame_pass import FramePass as IntraFramePass
+from xeve_jax.entropy.sbac import SbacEncoder, SbacCtx
+from xeve_jax.constants import chroma_qp_dynamic
 
 
 def _native_available():
     try:
-        from xeve_tpu.native.build import get_lib
+        from xeve_jax.native.build import get_lib
         get_lib()
         return True
     except Exception:
@@ -29,7 +29,7 @@ needs_native = pytest.mark.skipif(not _native_available(),
                                              (37, True, False),
                                              (32, False, True)])
 def test_native_pass_bitexact_vs_numpy(qp, rdoq, deblock):
-    from xeve_tpu.enc.intra_frame_native import encode_intra_frame_native
+    from xeve_jax.enc.intra_frame_native import encode_intra_frame_native
     w, h = 96, 80
     y8, u8, v8 = load_yuv8(os.path.join(DATA, "s96.yuv"), w, h, 0)
     y, u, v = y8 << 2, u8 << 2, v8 << 2
@@ -56,9 +56,9 @@ def test_native_pass_bitexact_vs_numpy(qp, rdoq, deblock):
 
 @needs_native
 def test_native_encoder_roundtrip():
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     w, h = 96, 80
     y8, u8, v8 = load_yuv8(os.path.join(DATA, "s96.yuv"), w, h, 0)
     y, u, v = y8 << 2, u8 << 2, v8 << 2
@@ -68,3 +68,30 @@ def test_native_encoder_roundtrip():
     assert np.array_equal(f.y, ry)
     assert np.array_equal(f.u, ru)
     assert np.array_equal(f.v, rv)
+
+
+def test_tables_h_matches_its_generator(tmp_path):
+    """The committed tables.h is what gen_tables.py writes (the build
+    never regenerates it)."""
+    from xeve_jax.native import gen_tables
+    out = tmp_path / "tables.h"
+    gen_tables.main(str(out))
+    here = os.path.join(os.path.dirname(gen_tables.__file__), "tables.h")
+    assert out.read_bytes() == open(here, "rb").read()
+
+
+def test_native_library_is_keyed_by_sources_flags_and_cpu():
+    """A library built for another CPU, other flags or other sources has
+    another name, so it is never loaded here."""
+    from xeve_jax.native import build
+    here = build.so_path()
+    assert build.so_path(build.host_cpu_flags()) == here
+    assert build.so_path(build.host_cpu_flags() + " other") != here
+    assert os.path.dirname(here) == os.path.join(
+        os.path.dirname(build.__file__), "build")
+    flags = build.CFLAGS
+    try:
+        build.CFLAGS = flags + ("-DXT_OTHER",)
+        assert build.so_path() != here
+    finally:
+        build.CFLAGS = flags

@@ -3,8 +3,8 @@ oracle: byte-identical bitstreams and recon for P and hierarchical-B."""
 import numpy as np
 import pytest
 
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.api import Encoder, GopEncoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.api import Encoder, GopEncoder
 
 
 def synth(n, w, h, seed=3):
@@ -57,7 +57,7 @@ def test_native_ra_b_matches_oracle():
 
 def test_native_p_decodes():
     """Native-coded LD-P stream round-trips through the own decoder."""
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     frames = synth(4, 128, 64, seed=11)
     enc = Encoder(EncoderParams(w=128, h=64, qp=30, keyint=0),
                   analysis="numpy", coder="native")

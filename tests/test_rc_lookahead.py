@@ -5,10 +5,10 @@ overshoot lands, and a hard scene change inserts a keyframe
 (xeve_fcst.c:106 / xeve_rc.c:598 analogs)."""
 import numpy as np
 
-from xeve_tpu.api import Encoder
-from xeve_tpu.params import EncoderParams
-from xeve_tpu.constants import SLICE_I
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.api import Encoder
+from xeve_jax.params import EncoderParams
+from xeve_jax.constants import SLICE_I
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 W, H, FPS = 96, 80, 30.0
 
@@ -78,7 +78,7 @@ def test_forecast_tightens_before_the_cut():
     """The frame just before the cut must not get a LOWER qp than it
     would with a flat target (the forecast sees the complexity jump in
     the pipeline and withholds bits)."""
-    from xeve_tpu.enc.rc import RateControl
+    from xeve_jax.enc.rc import RateControl
     rc_flat = RateControl("abr", W, H, FPS, bitrate_kbps=200.0)
     rc_fcst = RateControl("abr", W, H, FPS, bitrate_kbps=200.0)
     # warm both models identically

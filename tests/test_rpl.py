@@ -15,7 +15,7 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 W, H = 96, 80
@@ -49,8 +49,8 @@ def test_multiref4_roundtrip(nref):
     """LD with up to 4 active refs: lists reach the native pass and the
     stream stays decodable with matching recon."""
     from tools.gen_test_content import gen_frame
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
     frames = []
     for t in range(8):
         y, u, v = gen_frame(W, H, t)

@@ -1,6 +1,6 @@
 import random
 
-from xeve_tpu.entropy.sbac import SbacEncoder, SbacDecoder, ctx_array
+from xeve_jax.entropy.sbac import SbacEncoder, SbacDecoder, ctx_array
 
 
 def test_sbac_roundtrip_random():

@@ -21,7 +21,7 @@ TILE_CASES = [
 
 @pytest.mark.parametrize("name,w,h,n", TILE_CASES)
 def test_decode_reference_tile_stream(name, w, h, n):
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     stream = open(os.path.join(DATA, f"{name}.evc"), "rb").read()
     dec = BaselineIntraDecoder()
     frames = dec.decode(stream)
@@ -46,9 +46,9 @@ def _frames(w, h, n):
 
 
 def test_own_multitile_roundtrip_and_thread_invariance():
-    from xeve_tpu.api import Encoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import Encoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     W, H = 176, 144
     (y, u, v), = _frames(W, H, 1)
     outs = []
@@ -71,9 +71,9 @@ def test_own_multitile_roundtrip_and_thread_invariance():
 
 
 def test_own_multitile_inter_roundtrip():
-    from xeve_tpu.api import GopEncoder
-    from xeve_tpu.params import EncoderParams
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_jax.api import GopEncoder
+    from xeve_jax.params import EncoderParams
+    from xeve_jax.dec.decoder import BaselineIntraDecoder
     W, H = 176, 144
     enc = GopEncoder(EncoderParams(w=W, h=H, qp=32, keyint=0, bframes=15,
                                    profile=1, tile_columns=2, threads=2))

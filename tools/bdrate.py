@@ -66,8 +66,8 @@ def psnr_y(a, b):
 
 def run_ours(frames10, w, h, qp, profile, keyint, bframes, analysis="numpy",
              **extra):
-    from xeve_tpu.api import Encoder, GopEncoder
-    from xeve_tpu.params import EncoderParams
+    from xeve_jax.api import Encoder, GopEncoder
+    from xeve_jax.params import EncoderParams
     p = EncoderParams(w=w, h=h, qp=qp, keyint=keyint, bframes=bframes,
                       profile=profile, **extra)
     enc = (GopEncoder if bframes >= 15 else Encoder)(p, analysis=analysis,

@@ -5,8 +5,8 @@ Values are numeric spec constants (xevem_tbl.c:112-417, the xevem_init_*
 arrays used when sps_cm_init_flag==1); each table has two rows
 (intra-slice inits, inter-slice inits).  Run:
 
-    python tools/gen_ctx_init.py /root/reference/src_main/xevem_tbl.c \
-        xeve_tpu/entropy/ctx_init.py
+    python tools/gen_ctx_init.py xeve/src_main/xevem_tbl.c \
+        xeve_jax/entropy/ctx_init.py
 """
 import re
 import sys

@@ -2,7 +2,7 @@
 # Measure the reference encoder (mpeg5/xeve) anchors on the BASELINE.json
 # configs using the deterministic synthetic content generator.  Build the
 # reference once with:
-#   cp -r /root/reference .refsrc && echo v0.5.1 > .refsrc/version.txt
+#   cp -r <xeve source checkout> .refsrc && echo v0.5.1 > .refsrc/version.txt
 #   cmake -S .refsrc -B .refbuild -DCMAKE_BUILD_TYPE=Release
 #   make -C .refbuild -j xeve_app
 # Results feed BASELINE.md and the vs_baseline fields in bench.py.

@@ -6,7 +6,7 @@
  * `#if 0` block — so Main-profile tool subsets can only be selected by
  * setting param fields directly).  This file is OUR test tooling; it
  * links against the prebuilt reference static library and uses only the
- * public API in /root/reference/inc/xeve.h.
+ * public API in xeve/inc/xeve.h.
  *
  * Usage:
  *   ref_driver -i in.yuv -w W -h H -f N -o out.evc [-r rec.yuv]

@@ -21,7 +21,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_jax.dec.decoder import BaselineIntraDecoder
 
 
 def dump(stream_path, out_fp):
@@ -30,20 +30,20 @@ def dump(stream_path, out_fp):
     frames = dec.decode(bs)
     # re-decode frame by frame to capture per-frame maps
     dec2 = BaselineIntraDecoder()
-    from xeve_tpu.hls import split_nals
-    from xeve_tpu.constants import NUT_IDR, NUT_NONIDR, NUT_SPS, NUT_PPS
+    from xeve_jax.hls import split_nals
+    from xeve_jax.constants import NUT_IDR, NUT_NONIDR, NUT_SPS, NUT_PPS
     fi = 0
     for hdr, payload, _full in split_nals(bs):
         nut = hdr.nal_unit_type
         if nut == NUT_SPS:
-            from xeve_tpu.hls import SPS
-            from xeve_tpu.io.bits import BitReader
+            from xeve_jax.hls import SPS
+            from xeve_jax.io.bits import BitReader
             dec2.sps = SPS.parse(BitReader(payload))
             dec2._setup_dims()
             continue
         if nut == NUT_PPS:
-            from xeve_tpu.hls import PPS
-            from xeve_tpu.io.bits import BitReader
+            from xeve_jax.hls import PPS
+            from xeve_jax.io.bits import BitReader
             dec2.pps = PPS.parse(BitReader(payload),
                                  main=dec2.sps.profile_idc == 1)
             continue
